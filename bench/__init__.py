@@ -1,6 +1,2 @@
-"""Benchmark + probe package for the TPU-native BICOS engine.
-
-``python -m bench.prewarm`` warms every shipped program's compile cache
-(see prewarm.MANIFEST); ``bench/suite.py`` runs the full measurement
-matrix; ``bench/probe_*.py`` are standalone measurement probes.
-"""
+"""Benchmark package for the BICOS engine: ``bench/suite.py`` runs the
+per-stage and integration measurement matrix on a GPU."""

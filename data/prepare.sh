@@ -3,7 +3,7 @@
 # by the reference implementation, with checksum verification — a port of
 # /root/reference/data/prepare.sh semantics. In network-restricted CI this
 # falls back to generating a synthetic projected-pattern dataset with
-# libbicos_tpu.io.synthetic_stack_pair so the pipeline remains exercisable.
+# libbicos_jax.io.synthetic_stack_pair so the pipeline remains exercisable.
 set -eu
 
 cd "$(dirname "$0")"
@@ -29,7 +29,7 @@ else
 import os
 import numpy as np
 import cv2
-from libbicos_tpu.io import synthetic_stack_pair
+from libbicos_jax.io import synthetic_stack_pair
 
 n = 33
 s0, s1, disp = synthetic_stack_pair(n, 1080, 1440, dtype=np.uint8)

@@ -5,13 +5,13 @@ Run anywhere (forces CPU when requested):
 
     JAX_PLATFORMS=cpu python examples/serving.py
 
-On a TPU host you would instead run the daemon standalone —
+On a GPU host you would instead run the daemon standalone —
 
-    python -m libbicos_tpu.serve --port 8344 --limited -t 0.9 -v 2.0 \
+    python -m libbicos_jax.serve --port 8344 --limited -t 0.9 -v 2.0 \
         --warmup 33x2200x3300:u8
 
-— and point ``BicosClient`` at it from any process; the multi-minute XLA
-compile happens once at warmup, every later request is milliseconds.
+— and point ``BicosClient`` at it from any process; the XLA compile
+happens once at warmup, every later request skips it.
 """
 
 import os
@@ -28,10 +28,10 @@ try:
 except RuntimeError:
     pass
 
-import libbicos_tpu as bicos
-from libbicos_tpu.client import BicosClient
-from libbicos_tpu.io import synthetic_stack_pair
-from libbicos_tpu.serve import Engine, serve
+import libbicos_jax as bicos
+from libbicos_jax.client import BicosClient
+from libbicos_jax.io import synthetic_stack_pair
+from libbicos_jax.serve import Engine, serve
 
 PORT = 8377
 n, h, w = 10, 128, 160

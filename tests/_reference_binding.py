@@ -169,7 +169,7 @@ def ref_match(stack0: np.ndarray, stack1: np.ndarray, cfg
               ) -> Tuple[np.ndarray, np.ndarray]:
     """Run the COMPILED reference CPU backend through its C ABI.
 
-    ``cfg`` is a ``libbicos_tpu.Config``. Returns ``(disparity, corrmap)``
+    ``cfg`` is a ``libbicos_jax.Config``. Returns ``(disparity, corrmap)``
     exactly as the reference ctypes package would have (modulo the corrected
     struct). NOTE the measured C-ABI sentinel semantics (verified against
     the compiled binary, 2026-08-20): ``convertConfig`` only ASSIGNS config
@@ -183,7 +183,7 @@ def ref_match(stack0: np.ndarray, stack1: np.ndarray, cfg
     ``min_variance`` default to nullopt, so their -1 sentinels behave as
     expected.
     """
-    from libbicos_tpu.config import Consistency, TransformMode
+    from libbicos_jax.config import Consistency, TransformMode
 
     lib = load()
     assert lib is not None, "reference binding unavailable"

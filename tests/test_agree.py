@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from libbicos_tpu import Config, NoDuplicates, TransformMode
-from libbicos_tpu import _oracle as oracle
-from libbicos_tpu import agree, descriptor, search
+from libbicos_jax import Config, NoDuplicates, TransformMode
+from libbicos_jax import _oracle as oracle
+from libbicos_jax import agree, descriptor, search
 from conftest import make_stack_pair
 
 

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from libbicos_tpu import Config, Consistency, NoDuplicates, Precision, TransformMode
-from libbicos_tpu.cli import build_parser, config_from_args
+from libbicos_jax import Config, Consistency, NoDuplicates, Precision, TransformMode
+from libbicos_jax.cli import build_parser, config_from_args
 
 
 def _cfg(argv):
@@ -56,8 +56,8 @@ def test_cli_variance_nonpositive_disables():
 
 def test_cli_end_to_end(tmp_path, rng):
     cv2 = pytest.importorskip("cv2")
-    from libbicos_tpu.cli import main
-    from libbicos_tpu.io import synthetic_stack_pair
+    from libbicos_jax.cli import main
+    from libbicos_jax.io import synthetic_stack_pair
 
     s0, s1, _ = synthetic_stack_pair(5, 8, 24, seed=3)
     d = tmp_path / "imgs"
@@ -82,8 +82,8 @@ def test_cli_end_to_end(tmp_path, rng):
 def test_pybicos_compat_match(rng):
     from conftest import make_stack_pair
 
-    import libbicos_tpu as bicos
-    import libbicos_tpu.pybicos_compat as pybicos
+    import libbicos_jax as bicos
+    import libbicos_jax.pybicos_compat as pybicos
 
     s0, s1, _ = make_stack_pair(rng, 5, 6, 20)
     cfg = pybicos.Config()
@@ -109,8 +109,8 @@ def test_pybicos_compat_negative_threshold_keeps_default(rng):
     in tests/test_reference_differential.py."""
     from conftest import make_stack_pair
 
-    import libbicos_tpu as bicos
-    import libbicos_tpu.pybicos_compat as pybicos
+    import libbicos_jax as bicos
+    import libbicos_jax.pybicos_compat as pybicos
 
     s0, s1, _ = make_stack_pair(rng, 5, 4, 16)
     cfg = pybicos.Config()
@@ -127,8 +127,8 @@ def test_pybicos_compat_negative_threshold_keeps_default(rng):
 def test_pybicos_compat_consistency(rng):
     from conftest import make_stack_pair
 
-    import libbicos_tpu as bicos
-    import libbicos_tpu.pybicos_compat as pybicos
+    import libbicos_jax as bicos
+    import libbicos_jax.pybicos_compat as pybicos
 
     s0, s1, _ = make_stack_pair(rng, 5, 4, 16)
     cfg = pybicos.Config()
@@ -143,7 +143,7 @@ def test_pybicos_compat_consistency(rng):
 
 
 def test_pybicos_invalid_disparity():
-    import libbicos_tpu.pybicos_compat as pybicos
+    import libbicos_jax.pybicos_compat as pybicos
 
     assert np.isnan(pybicos.invalid_disparity(np.float32))
     assert pybicos.invalid_disparity(np.int16) == -32768
@@ -153,8 +153,8 @@ def test_cli_dump_descriptors(tmp_path, rng):
     """--dump-descriptors writes both stacks' packed words (debug artifact)."""
     import numpy as np
     from conftest import make_stack_pair
-    from libbicos_tpu import TransformMode, descriptor
-    from libbicos_tpu.cli import main
+    from libbicos_jax import TransformMode, descriptor
+    from libbicos_jax.cli import main
     import cv2
 
     s0, s1, _ = make_stack_pair(rng, 4, 6, 24)
@@ -176,10 +176,10 @@ def test_cli_dump_descriptors(tmp_path, rng):
 @pytest.mark.parametrize("shard_axis", ["rows", "cols"])
 def test_cli_sharded_matches_unsharded(tmp_path, rng, shard_axis):
     """--devices N (both H- and W-banding) must reproduce the single-device
-    CLI output exactly (TPU-extension flags over the reference surface)."""
+    CLI output exactly (extension flags over the reference surface)."""
     cv2 = pytest.importorskip("cv2")
-    from libbicos_tpu.cli import main
-    from libbicos_tpu.io import synthetic_stack_pair
+    from libbicos_jax.cli import main
+    from libbicos_jax.io import synthetic_stack_pair
 
     s0, s1, _ = synthetic_stack_pair(5, 8, 24, seed=7)
     d = tmp_path / "imgs"
@@ -201,7 +201,7 @@ def test_cli_sharded_matches_unsharded(tmp_path, rng, shard_axis):
 def test_cli_prints_license_banner(capsys):
     """The reference CLI always prints its LGPL banner first
     (cli.cpp:49-53,91); ours does the same before touching the inputs."""
-    from libbicos_tpu.cli import LICENSE_HEADER, main
+    from libbicos_jax.cli import LICENSE_HEADER, main
 
     with pytest.raises((FileNotFoundError, NotADirectoryError)):
         main(["/nonexistent-bicos-folder"])
@@ -216,8 +216,8 @@ def test_pybicos_compat_float_disparity(rng):
     (NOT NaN — the reference's own quirk); float inputs pass through."""
     from conftest import make_stack_pair
 
-    import libbicos_tpu as bicos
-    import libbicos_tpu.pybicos_compat as pybicos
+    import libbicos_jax as bicos
+    import libbicos_jax.pybicos_compat as pybicos
 
     s0, s1, _ = make_stack_pair(rng, 5, 4, 16)
     disp = np.asarray(bicos.match(

@@ -1,13 +1,13 @@
-"""BICOS_DEBUG invariant checks (libbicos_tpu/debug.py) — the analogue of
+"""BICOS_DEBUG invariant checks (libbicos_jax/debug.py) — the analogue of
 the reference's debug-build traps (bitfield.hpp:40-48, bitfield.cuh:56-58)."""
 
 import numpy as np
 import pytest
 from conftest import make_stack_pair
 
-import libbicos_tpu as bicos
-from libbicos_tpu import debug as dbg
-from libbicos_tpu.config import TransformMode, actual_bits
+import libbicos_jax as bicos
+from libbicos_jax import debug as dbg
+from libbicos_jax.config import TransformMode, actual_bits
 
 
 def test_enabled_reads_env_at_call_time(monkeypatch):
@@ -35,7 +35,7 @@ def test_descriptor_overflow_detected(rng):
     """Set bits at/beyond the declared width must raise (the bitfield
     overflow trap)."""
     s0, _, _ = make_stack_pair(rng, 6, 4, 40)
-    from libbicos_tpu import descriptor
+    from libbicos_jax import descriptor
 
     words = np.asarray(descriptor.descriptor_words(s0, TransformMode.LIMITED))
     nbits = actual_bits(6, TransformMode.LIMITED)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from libbicos_tpu import TransformMode
-from libbicos_tpu import _oracle as oracle
-from libbicos_tpu import descriptor
-from libbicos_tpu.config import actual_bits, required_bits
+from libbicos_jax import TransformMode
+from libbicos_jax import _oracle as oracle
+from libbicos_jax import descriptor
+from libbicos_jax.config import actual_bits, required_bits
 
 
 @pytest.mark.parametrize("n", [2, 3, 4, 5, 10, 33, 65])
@@ -79,7 +79,7 @@ def test_required_vs_actual_bits():
 def test_descriptor_words_equals_packed_bits(rng):
     """The fused word path must match pack_bits(descriptor_bits(...))."""
     import numpy as np
-    from libbicos_tpu import TransformMode, descriptor
+    from libbicos_jax import TransformMode, descriptor
 
     for n, mode in [(2, TransformMode.LIMITED), (5, TransformMode.LIMITED),
                     (33, TransformMode.LIMITED), (6, TransformMode.FULL),
@@ -88,60 +88,3 @@ def test_descriptor_words_equals_packed_bits(rng):
         want = descriptor.pack_bits(descriptor.descriptor_bits(s, mode))
         got = descriptor.descriptor_words(s, mode)
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_descriptor_words_pallas_parity(rng):
-    """The Pallas transform kernel must be bit-identical to the XLA path."""
-    import numpy as np
-    from libbicos_tpu import TransformMode, descriptor
-    from libbicos_tpu.kernels.transform import descriptor_words_pallas
-
-    for n, mode, dtype in [(5, TransformMode.LIMITED, np.uint8),
-                           (33, TransformMode.LIMITED, np.uint8),
-                           (6, TransformMode.FULL, np.uint16),
-                           (16, TransformMode.FULL, np.uint8)]:
-        s = rng.integers(0, np.iinfo(dtype).max + 1, (n, 5, 40)).astype(dtype)
-        want = descriptor.descriptor_words(s, mode)
-        got = descriptor_words_pallas(s, mode, interpret=True)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_compare_coeffs_bit_exact(rng):
-    """The comparison-matrix form (bit k = dot(CX[k], s) < dot(CY[k], s))
-    reproduces every descriptor bit — the algebraic foundation of the fused
-    transform+search kernel (kernels/hamming.py)."""
-    import pytest as _pytest
-
-    for n, mode in [(4, TransformMode.LIMITED), (33, TransformMode.LIMITED),
-                    (65, TransformMode.LIMITED), (2, TransformMode.FULL),
-                    (17, TransformMode.FULL)]:
-        for dtype in (np.uint8, np.uint16):
-            hi = np.iinfo(dtype).max
-            s = rng.integers(0, hi + 1, (n, 5, 9)).astype(dtype)
-            ref = np.asarray(descriptor.descriptor_bits(s, mode))
-            cx, cy = descriptor.compare_coeffs(n, mode)
-            flat = s.reshape(n, -1).astype(np.int64)
-            got = ((cx @ flat) < (cy @ flat)).T.reshape(ref.shape)
-            np.testing.assert_array_equal(got, ref)
-    with _pytest.raises(ValueError):
-        descriptor.compare_coeffs(3, TransformMode.LIMITED)
-
-
-def test_compare_coeffs_mean_rounding_equivalence(rng):
-    """n*s[t] < sum is exactly the reference's s[t] < fl(sum/n) even at
-    near-tie sums (the division's rounding never crosses an integer)."""
-    for n in (5, 33):
-        # Constant series (exact ties) + off-by-one perturbations.
-        for base in (0, 1, 100, 255):
-            s = np.full((n, 1, 3), base, np.uint8)
-            s[0, 0, 1] = min(255, base + 1)
-            s[0, 0, 2] = max(0, base - 1)
-            ref = np.asarray(
-                descriptor.descriptor_bits(s, TransformMode.LIMITED)
-            ) if n >= 4 else None
-            if ref is None:
-                continue
-            cx, cy = descriptor.compare_coeffs(n, TransformMode.LIMITED)
-            flat = s.reshape(n, -1).astype(np.int64)
-            got = ((cx @ flat) < (cy @ flat)).T.reshape(ref.shape)
-            np.testing.assert_array_equal(got, ref)

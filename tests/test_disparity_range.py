@@ -1,24 +1,24 @@
 """``Config.disparity_range`` — the bounded-range matching extension.
 
 The reference always scans the full row (``bicos.hpp:54``); the range mode
-is a TPU-native extension (standard production-stereo contract) whose
+is an extension (standard production-stereo contract) whose
 semantics are: argmin restricted to candidates with ``dmin <= col0 - col1
 <= dmax`` (both searches of the Consistency variant), no-candidate pixels
 invalid, everything downstream (ties, NXCORR, subpixel) unchanged. The
 ground truth here is a direct numpy transcription of that definition; the
-masked XLA path and the range-specialized fused kernel
-(``row_minima_stack_range`` — compile-time chunk skipping) plus the
-static-window agree must all agree with it exactly.
+masked XLA scan and the GPU scan kernel (interpret mode), whose block loop
+visits only the right tiles the range can reach, must both agree with it
+exactly.
 """
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import libbicos_tpu as bicos
-from libbicos_tpu import _oracle
-from libbicos_tpu.config import Config, Consistency
-from libbicos_tpu.io import synthetic_stack_pair
+import libbicos_jax as bicos
+from libbicos_jax import _oracle
+from libbicos_jax.config import Config, Consistency
+from libbicos_jax.io import synthetic_stack_pair
 
 
 def _np_range_nodupes(s0, s1, mode, dmin, dmax):
@@ -46,8 +46,8 @@ def test_range_search_matches_numpy_reference(rng, dr):
     want = _np_range_nodupes(s0, s1, cfg.mode, *dr)
     got_x = np.asarray(bicos.match(s0, s1, cfg, backend="xla"))
     np.testing.assert_array_equal(got_x, want)
-    # The range-specialized fused kernel (compile-time chunk skipping).
-    got_p = np.asarray(bicos.match(s0, s1, cfg, backend="pallas_interpret"))
+    # The GPU scan kernel, whose block loop skips out-of-range tiles.
+    got_p = np.asarray(bicos.match(s0, s1, cfg, backend="triton_interpret"))
     np.testing.assert_array_equal(got_p, want)
 
 
@@ -76,16 +76,16 @@ def test_range_restricts_and_validity(rng):
     Consistency(max_lr_diff=3, no_dupes=True),  # widened agree windows
 ])
 def test_range_full_pipeline_kernel_vs_xla(rng, step, variant):
-    """Threshold+minvar (+subpixel) with range: the static-window agree
-    kernel must match the XLA path bit-for-bit. At n=12 the subpixel agree
-    resolves to the mxu gather, so the static windows (and their
-    consistency widening by ceil(max_lr_diff/2)) actually engage."""
+    """Threshold+minvar (+subpixel) with range: the kernel pipeline (ranged
+    scan + NXCORR kernel) must match the XLA path bit-for-bit, including
+    Consistency disparities that sit ceil(max_lr_diff/2) outside the
+    range."""
     s0, s1, _ = synthetic_stack_pair(12, 12, 700, dtype=np.uint8, seed=9)
     kw = {} if variant is None else {"variant": variant}
     cfg = Config(nxcorr_threshold=0.5, subpixel_step=step, min_variance=1.0,
                  disparity_range=(0, 63), **kw)
     gx = np.asarray(bicos.match(s0, s1, cfg, backend="xla"))
-    gp = np.asarray(bicos.match(s0, s1, cfg, backend="pallas_interpret"))
+    gp = np.asarray(bicos.match(s0, s1, cfg, backend="triton_interpret"))
     if gx.dtype.kind == "f":
         np.testing.assert_array_equal(np.isnan(gx), np.isnan(gp))
         m = ~np.isnan(gx)
@@ -96,15 +96,14 @@ def test_range_full_pipeline_kernel_vs_xla(rng, step, variant):
 
 @pytest.mark.parametrize("step", [None, 0.25])
 def test_range_u16_mxu_gather_kernel_vs_xla(rng, step):
-    """u16 + range (r5): the ranged upgrade routes u16 agree through the
-    static-window mxu gather (byte-split compile-time-window dots) instead
-    of the extraction-bound window gather; must match XLA bit-for-bit for
-    both the integer and subpixel variants."""
+    """u16 + range: the kernel pipeline reads u16 series (modular u16
+    rounding in the sweep) and must match XLA bit-for-bit for both the
+    integer and subpixel variants."""
     s0, s1, _ = synthetic_stack_pair(12, 12, 700, dtype=np.uint16, seed=13)
     cfg = Config(nxcorr_threshold=0.5, subpixel_step=step, min_variance=1.0,
                  disparity_range=(0, 63))
     gx = np.asarray(bicos.match(s0, s1, cfg, backend="xla"))
-    gp = np.asarray(bicos.match(s0, s1, cfg, backend="pallas_interpret"))
+    gp = np.asarray(bicos.match(s0, s1, cfg, backend="triton_interpret"))
     if gx.dtype.kind == "f":
         np.testing.assert_array_equal(np.isnan(gx), np.isnan(gp))
         m = ~np.isnan(gx)
@@ -116,17 +115,16 @@ def test_range_u16_mxu_gather_kernel_vs_xla(rng, step):
 @pytest.mark.parametrize("no_dupes", [True, False])
 @pytest.mark.parametrize("mld", [1, 3])
 def test_range_consistency_variant(rng, no_dupes, mld):
-    """Consistency (+no_dupes) with range: the fused ranged consistency
-    kernel (row_minima_consistency_stack_range) must match the masked XLA
-    scan bit-for-bit, including the widened agree windows (the averaged
-    consistency disparity can sit ceil(max_lr_diff/2) outside the search
-    range)."""
+    """Consistency (+no_dupes) with range: the ranged scan kernel, run
+    forward and reverse (reflected range), must match the masked XLA scan
+    bit-for-bit; the averaged consistency disparity can sit
+    ceil(max_lr_diff/2) outside the search range."""
     s0, s1, _ = synthetic_stack_pair(8, 8, 64, dtype=np.uint8, seed=11)
     cfg = Config(nxcorr_threshold=0.5, min_variance=1.0,
                  variant=Consistency(max_lr_diff=mld, no_dupes=no_dupes),
                  disparity_range=(0, 31))
     gx = np.asarray(bicos.match(s0, s1, cfg, backend="xla"))
-    gp = np.asarray(bicos.match(s0, s1, cfg, backend="pallas_interpret"))
+    gp = np.asarray(bicos.match(s0, s1, cfg, backend="triton_interpret"))
     np.testing.assert_array_equal(gx, gp)
     v = gx != -32768
     m2 = (mld + 1) // 2
@@ -142,11 +140,10 @@ def test_range_config_validation():
 
 
 def test_range_wband_matches_single_chip(rng):
-    """Ranged W-banding (supported since r5; the former rejection is gone)
-    must equal the single-chip ranged scan — the full equality matrix
-    (both ring engines, u8/u16, negative ranges) lives in
-    tests/test_sharding.py."""
-    from libbicos_tpu.sharding import make_mesh, match_sharded_w
+    """Ranged W-banding must equal the single-device ranged scan — the
+    full equality matrix (both agree engines, u8/u16, negative ranges)
+    lives in tests/test_sharding.py."""
+    from libbicos_jax.sharding import make_mesh, match_sharded_w
 
     s0, s1, _ = synthetic_stack_pair(5, 8, 32, dtype=np.uint8, seed=1)
     cfg = Config(nxcorr_threshold=0.5, disparity_range=(0, 8))
@@ -157,7 +154,7 @@ def test_range_wband_matches_single_chip(rng):
 
 
 def test_range_hband_matches_single_chip(rng):
-    from libbicos_tpu.sharding import make_mesh, match_sharded
+    from libbicos_jax.sharding import make_mesh, match_sharded
 
     s0, s1, _ = synthetic_stack_pair(6, 16, 48, dtype=np.uint8, seed=2)
     cfg = Config(nxcorr_threshold=0.5, disparity_range=(0, 15))

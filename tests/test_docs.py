@@ -9,29 +9,29 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
-# First components that map into libbicos_tpu.<module>; other prefixes
+# First components that map into libbicos_jax.<module>; other prefixes
 # (np, jax, cv, data paths, reference file citations) are not ours to check.
 MODULES = {
     "descriptor", "search", "agree", "io", "sharding", "profiling",
     "kernels", "pipeline", "config", "serve", "client", "native",
-    "pybicos_compat", "cli",
+    "pybicos_compat", "cli", "compile_cache",
 }
 
 
 def _resolve(path: str) -> bool:
-    import libbicos_tpu
+    import libbicos_jax
 
-    obj = libbicos_tpu
+    obj = libbicos_jax
     for part in path.split("."):
         obj = getattr(obj, part, None)
         if obj is None:
             # Submodules aren't imported by the package root; import on
-            # demand (e.g. kernels.hamming, serve, client).
+            # demand (e.g. kernels.scan, serve, client).
             import importlib
 
             try:
                 obj = importlib.import_module(
-                    "libbicos_tpu." + path[: path.index(part) + len(part)]
+                    "libbicos_jax." + path[: path.index(part) + len(part)]
                 )
             except ImportError:
                 return False
@@ -64,7 +64,7 @@ def test_env_knobs_documented_exist():
     text = (REPO / "docs" / "API.md").read_text()
     documented = set(re.findall(r"BICOS_[A-Z_0-9]+", text))
     used = set()
-    for p in (REPO / "libbicos_tpu").rglob("*.py"):
+    for p in (REPO / "libbicos_jax").rglob("*.py"):
         used |= set(re.findall(r"environ\.get\(\"(BICOS_[A-Z_0-9]+)\"",
                                p.read_text()))
     missing = documented - used - {"BICOS_BENCH_MODE"}  # bench.py knob

@@ -16,7 +16,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import libbicos_tpu as bicos
+import libbicos_jax as bicos
 
 FIX = Path(__file__).parent / "fixtures"
 
@@ -38,7 +38,7 @@ def test_golden_subpixel(stack):
     g = np.load(FIX / "golden.npz")
     cfg = bicos.Config(nxcorr_threshold=0.7, subpixel_step=0.25,
                        min_variance=1.0, mode=bicos.TransformMode.LIMITED)
-    for backend in ("xla", "pallas_interpret"):
+    for backend in ("xla", "triton_interpret"):
         d, c = bicos.match(s0, s1, cfg, corrmap=True, backend=backend)
         d = np.asarray(d)
         want = g["d_sub"]
@@ -58,7 +58,7 @@ def test_golden_integer_consistency(stack):
     cfg = bicos.Config(
         nxcorr_threshold=0.5,
         variant=bicos.Consistency(max_lr_diff=1, no_dupes=True))
-    for backend in ("xla", "pallas_interpret"):
+    for backend in ("xla", "triton_interpret"):
         d = np.asarray(bicos.match(s0, s1, cfg, backend=backend))
         np.testing.assert_array_equal(d, g["d_int"])
 

@@ -1,9 +1,9 @@
 """Regression tests for the driver contract in ``__graft_entry__.py``.
 
-The round driver compile-checks ``entry()`` single-chip and executes
-``dryrun_multichip(N)`` on a virtual N-device CPU mesh; a refactor that
-breaks either is otherwise invisible until the end of a round. These tests
-exercise both under the suite's own 8-device CPU mesh (conftest.py).
+``entry()`` is compile-checked on one device and ``dryrun_multichip(N)``
+runs on a virtual N-device CPU mesh; a refactor that breaks either is
+otherwise easy to miss. These tests exercise both under the suite's own
+8-device CPU mesh (conftest.py).
 """
 
 import os
@@ -40,6 +40,6 @@ def test_entry_compiles_and_runs():
     "conflicts with running the suite on a real platform (BICOS_TEST_PLATFORM)",
 )
 def test_dryrun_multichip_8():
-    # Includes internal exact-equality asserts: W-band ring vs single-chip
+    # Includes internal exact-equality asserts: W-band ring vs single-device
     # minima, H-/W-banded and batched pipelines vs the unsharded match.
     graft.dryrun_multichip(8)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from libbicos_tpu import io as bio
+from libbicos_jax import io as bio
 
 cv2 = pytest.importorskip("cv2")
 
@@ -119,7 +119,7 @@ def test_q_matrix_yaml(tmp_path):
 def test_synthetic_stack_pair_recoverable():
     """The synthetic generator's ground truth must be recoverable by the
     matcher (shift-invariance property test, SURVEY.md section 4)."""
-    import libbicos_tpu as bicos
+    import libbicos_jax as bicos
 
     s0, s1, disp = bio.synthetic_stack_pair(8, 12, 48, seed=7)
     got = np.asarray(

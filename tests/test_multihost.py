@@ -4,7 +4,7 @@ SURVEY.md section 4 calls for multi-host tests via ``jax.distributed`` on
 top of the 8-device single-process simulation the rest of the suite uses;
 this spawns two coordinator-connected worker processes (4 virtual CPU
 devices each) and runs the H-banded sharded match across the process
-boundary — the same code path a real multi-host TPU pod would take.
+boundary — the same code path a real multi-host GPU cluster would take.
 """
 
 import os

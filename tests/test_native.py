@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from libbicos_tpu import native
+from libbicos_jax import native
 
 cv2 = pytest.importorskip("cv2")
 
@@ -62,7 +62,7 @@ def test_write_xyz_filters(tmp_path, lib):
 def test_io_read_sequence_uses_native(tmp_path, rng, lib):
     """The io-layer sequence loader must produce identical stacks whether or
     not the native decoder kicks in."""
-    import libbicos_tpu.io as bio
+    import libbicos_jax.io as bio
 
     imgs = [rng.integers(0, 256, (16, 24), dtype=np.uint8) for _ in range(3)]
     for i, img in enumerate(imgs):

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import libbicos_tpu as bicos
-from libbicos_tpu import _oracle as oracle
+import libbicos_jax as bicos
+from libbicos_jax import _oracle as oracle
 from conftest import make_stack_pair
 
 CONFIGS = [
@@ -131,8 +131,8 @@ def test_match_double_precision(rng):
     import numpy as np
     from conftest import make_stack_pair
 
-    import libbicos_tpu as bicos
-    from libbicos_tpu import Precision
+    import libbicos_jax as bicos
+    from libbicos_jax import Precision
 
     s0, s1, _ = make_stack_pair(rng, 5, 4, 20)
     d32, c32 = bicos.match(
@@ -156,8 +156,8 @@ def test_match_extreme_stack_sizes(rng):
     import numpy as np
     from conftest import make_stack_pair
 
-    import libbicos_tpu as bicos
-    from libbicos_tpu.config import TransformMode, actual_bits, max_stacksize
+    import libbicos_jax as bicos
+    from libbicos_jax.config import TransformMode, actual_bits, max_stacksize
 
     assert max_stacksize(TransformMode.LIMITED) == 65
     assert actual_bits(65, TransformMode.LIMITED) == 254
@@ -168,7 +168,7 @@ def test_match_extreme_stack_sizes(rng):
                         backend="xla"))
         got = np.asarray(
             bicos.match(s0, s1, bicos.Config(nxcorr_threshold=None),
-                        backend="pallas_interpret"))
+                        backend="triton_interpret"))
         np.testing.assert_array_equal(got, want)
 
 
@@ -176,8 +176,8 @@ def test_match_rejects_oversized_stack(rng):
     import numpy as np
     import pytest as _pytest
 
-    import libbicos_tpu as bicos
-    from libbicos_tpu.config import TransformMode
+    import libbicos_jax as bicos
+    from libbicos_jax.config import TransformMode
 
     s = rng.integers(0, 255, (66, 3, 8), dtype=np.uint8)
     with _pytest.raises(ValueError, match="too large"):
@@ -242,9 +242,9 @@ def test_fuzz_random_configs():
 
 
 def test_fuzz_random_configs_pallas():
-    """Same randomized draw protocol through the PALLAS pipeline (interpret
-    mode): the kernel path must agree with the oracle across the config
-    matrix, not just on the hand-picked kernel tests."""
+    """Same randomized draw protocol through the GPU kernel pipeline
+    (interpret mode): the kernel path must agree with the oracle across the
+    config matrix, not just on the hand-picked kernel tests."""
     fuzz = np.random.default_rng(0xB1C05)
     for trial in range(4):
         mode = (bicos.TransformMode.FULL if fuzz.integers(2)
@@ -273,11 +273,11 @@ def test_fuzz_random_configs_pallas():
         ctx = f"trial={trial} cfg={cfg} n={n} {h}x{w} {dtype.__name__}"
         want_d, want_c = oracle.match(s0, s1, cfg)
         if threshold is None:
-            got_d = bicos.match(s0, s1, cfg, backend="pallas_interpret")
+            got_d = bicos.match(s0, s1, cfg, backend="triton_interpret")
             np.testing.assert_array_equal(np.asarray(got_d), want_d, ctx)
             continue
         got_d, got_c = bicos.match(
-            s0, s1, cfg, corrmap=True, backend="pallas_interpret")
+            s0, s1, cfg, corrmap=True, backend="triton_interpret")
         got_d, got_c = np.asarray(got_d), np.asarray(got_c)
         np.testing.assert_allclose(
             got_c, want_c, rtol=3e-5, atol=3e-5, equal_nan=True, err_msg=ctx)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from libbicos_tpu import Config, TransformMode
-from libbicos_tpu import profiling
+from libbicos_jax import Config, TransformMode
+from libbicos_jax import profiling
 
 
 def test_stage_timings(rng):

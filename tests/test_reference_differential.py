@@ -1,4 +1,4 @@
-"""Differential CI gate: the TPU engine vs the REAL compiled reference.
+"""Differential CI gate: the JAX engine vs the REAL compiled reference.
 
 Everything else in the suite pins the engine against ``_oracle.py`` — a
 *transcription* of the reference templates — so a shared mis-reading of the
@@ -24,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-import libbicos_tpu as bicos
-from libbicos_tpu.config import Config, Consistency, NoDuplicates, TransformMode
+import libbicos_jax as bicos
+from libbicos_jax.config import Config, Consistency, NoDuplicates, TransformMode
 
 import _reference_binding as rb
 
@@ -63,7 +63,7 @@ def _draw_cfg(fz):
 def _make_pair(fz, n, h, w, dtype):
     hi = int(np.iinfo(dtype).max) + 1
     if fz.integers(3):
-        from libbicos_tpu.io import synthetic_stack_pair
+        from libbicos_jax.io import synthetic_stack_pair
         s0, s1, _ = synthetic_stack_pair(
             n, h, w, dtype=dtype, seed=int(fz.integers(2**31)))
         return s0, s1
@@ -120,9 +120,8 @@ def _compare(ref_d, ref_c, got_d, got_c, cfg, ctx):
 
 @pytest.mark.parametrize("burst", range(5))
 def test_fuzz_engine_vs_compiled_reference(burst):
-    """>= 50 randomized trials against the real compiled C++ (VERDICT r3
-    task 2). Split into bursts so a failure localizes and the suite can
-    parallelize."""
+    """>= 50 randomized trials against the real compiled C++. Split into
+    bursts so a failure localizes and the suite can parallelize."""
     fz = np.random.default_rng(0xB1C05 + burst)
     for t in range(12):
         cfg, n = _draw_cfg(fz)
@@ -139,9 +138,8 @@ def test_fuzz_engine_vs_compiled_reference(burst):
 def test_fuzz_compat_vs_compiled_reference():
     """The drop-in ``pybicos_compat`` surface must match the compiled
     CPU-build binding byte-for-byte: float32 disparity whenever the (always
-    effective) threshold applies, identical corrmap contract (VERDICT r3
-    task 7)."""
-    import libbicos_tpu.pybicos_compat as pybicos
+    effective) threshold applies, identical corrmap contract."""
+    import libbicos_jax.pybicos_compat as pybicos
 
     fz = np.random.default_rng(0xC0FFEE)
     for t in range(8):
@@ -173,7 +171,7 @@ def test_negative_threshold_sentinel_keeps_default():
     only assigns when >= 0 (pybicos_c.cpp:56-62) and the C++ default is
     0.5f (common.hpp:74). pybicos therefore cannot reach the library's
     nullopt-threshold path; pybicos_compat mirrors this."""
-    import libbicos_tpu.pybicos_compat as pybicos
+    import libbicos_jax.pybicos_compat as pybicos
 
     rng = np.random.default_rng(7)
     s0 = rng.integers(0, 256, size=(5, 6, 24), dtype=np.uint8)
@@ -204,7 +202,7 @@ def test_float_output_dtype_contract():
     assert (ref_d == -32768.0).any()  # high threshold rejects plenty
     assert not np.isnan(ref_d).any()
 
-    import libbicos_tpu.pybicos_compat as pybicos
+    import libbicos_jax.pybicos_compat as pybicos
     pcfg = pybicos.Config()
     pcfg.nxcorr_threshold = 0.9
     got_d, _ = pybicos.match(list(s0), list(s1), pcfg)
@@ -214,14 +212,14 @@ def test_float_output_dtype_contract():
 
 
 def test_headline_config_large_stack_agreement():
-    """Production-class gate (VERDICT r3 missing-2): the README headline
+    """Production-class gate: the README headline
     configuration (threshold .96, step .1, variance 2, LIMITED) on a
     33-image synthetic stack at a larger-than-fuzz size must agree with
     the COMPILED reference exactly under the standard near-tie policy.
     (The real downloadable dataset is network-restricted; the synthetic
     projected-pattern stack exercises the same statistics minus sensor
     noise.)"""
-    from libbicos_tpu.io import synthetic_stack_pair
+    from libbicos_jax.io import synthetic_stack_pair
 
     s0, s1, _ = synthetic_stack_pair(33, 96, 768, dtype=np.uint8, seed=99)
     cfg = Config(nxcorr_threshold=0.96, subpixel_step=0.1, min_variance=2.0,

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from libbicos_tpu import Consistency, NoDuplicates, TransformMode
-from libbicos_tpu import _oracle as oracle
-from libbicos_tpu import descriptor, search
+from libbicos_jax import Consistency, NoDuplicates, TransformMode
+from libbicos_jax import _oracle as oracle
+from libbicos_jax import descriptor, search
 
 VARIANTS = [
     NoDuplicates(),
@@ -93,23 +93,21 @@ def test_row_minima_decode(rng):
 
 
 def test_ultrawide_row_falls_back_to_xla(rng):
-    """Widths past the Pallas kernels' 13-bit column packing route to the
-    XLA path (PACK_K = 32768) instead of raising at trace time."""
-    from libbicos_tpu.config import actual_bits
-    from libbicos_tpu import descriptor as D
+    """A wide row (8200 columns, 65 right tiles) through the GPU scan kernel
+    in interpret mode equals the XLA scan, from stacks and from words."""
+    from libbicos_jax import descriptor as D
 
     n, mode = 4, TransformMode.LIMITED
     from conftest import make_stack_pair
 
     s0, s1, _ = make_stack_pair(rng, n, 1, 8200, max_disp=16)
-    nbits = actual_bits(n, mode)
     want = np.asarray(search.search_stack(s0, s1, mode, NoDuplicates(),
                                           backend="xla"))
     got = np.asarray(search.search_stack(s0, s1, mode, NoDuplicates(),
-                                         backend="pallas_interpret"))
+                                         backend="triton_interpret"))
     np.testing.assert_array_equal(got, want)
     w0 = D.descriptor_words(s0, mode)
     w1 = D.descriptor_words(s1, mode)
-    got_w = np.asarray(search.search_words(w0, w1, nbits, NoDuplicates(),
-                                           backend="pallas_interpret"))
+    got_w = np.asarray(search.search_words(w0, w1, NoDuplicates(),
+                                           backend="triton_interpret"))
     np.testing.assert_array_equal(got_w, want)

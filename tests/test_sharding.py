@@ -1,13 +1,13 @@
-"""Multi-chip sharding on the 8-device virtual CPU mesh (conftest sets
+"""Multi-device sharding on the 8-device virtual CPU mesh (conftest sets
 XLA_FLAGS=--xla_force_host_platform_device_count=8)."""
 
 import numpy as np
 import pytest
 
-import libbicos_tpu as bicos
-from libbicos_tpu import Config, Consistency, NoDuplicates, TransformMode
-from libbicos_tpu import descriptor, search
-from libbicos_tpu.sharding import (
+import libbicos_jax as bicos
+from libbicos_jax import Config, Consistency, NoDuplicates, TransformMode
+from libbicos_jax import descriptor, search
+from libbicos_jax.sharding import (
     make_mesh, match_sharded, match_sharded_w, row_minima_wband,
 )
 
@@ -56,7 +56,7 @@ def test_match_sharded_corrmap(rng, mesh):
 def test_match_batched_sharded_equals_batched(rng, mesh):
     from conftest import make_stack_pair
 
-    from libbicos_tpu.sharding import match_batched_sharded
+    from libbicos_jax.sharding import match_batched_sharded
 
     cfg = Config(nxcorr_threshold=0.5, min_variance=1.0)
     pairs = [make_stack_pair(rng, 4, 6, 24) for _ in range(3)]
@@ -72,7 +72,16 @@ def test_match_batched_sharded_equals_batched(rng, mesh):
     np.testing.assert_array_equal(np.asarray(gc), np.asarray(wc))
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+def _single_minima(backend, bits0, bits1, need_last, drange=None):
+    """Single-device minima from either scan engine (the ring's reference)."""
+    w0, w1 = descriptor.pack_bits(bits0), descriptor.pack_bits(bits1)
+    if backend == "xla":
+        return search.row_minima_xla_words(w0, w1, need_last, drange=drange)
+    return search.row_minima_triton_words(w0, w1, need_last, drange,
+                                          interpret=True)
+
+
+@pytest.mark.parametrize("backend", ["xla", "triton_interpret"])
 @pytest.mark.parametrize("need_last", [True, False])
 def test_wband_ring_equals_single(rng, mesh, need_last, backend):
     from conftest import make_stack_pair
@@ -80,32 +89,31 @@ def test_wband_ring_equals_single(rng, mesh, need_last, backend):
     s0, s1, _ = make_stack_pair(rng, 6, 3, 42)  # W=42: uneven over 4 devices
     b0 = descriptor.descriptor_bits(s0, TransformMode.LIMITED)
     b1 = descriptor.descriptor_bits(s1, TransformMode.LIMITED)
-    cw, fw, lw = row_minima_wband(b0, b1, need_last, mesh=mesh,
-                                  backend=backend)
-    c1, f1, l1 = search.row_minima_xla(b0, b1, need_last)
+    cw, fw, lw = row_minima_wband(b0, b1, need_last, mesh=mesh)
+    c1, f1, l1 = _single_minima(backend, b0, b1, need_last)
     np.testing.assert_array_equal(np.asarray(cw), np.asarray(c1))
     np.testing.assert_array_equal(np.asarray(fw), np.asarray(f1))
     if need_last:
         np.testing.assert_array_equal(np.asarray(lw), np.asarray(l1))
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
-def test_wband_duplicate_ties_across_bands(rng, mesh, backend):
+@pytest.mark.parametrize("dup", [35, 12])
+def test_wband_duplicate_ties_across_bands(rng, mesh, dup):
     """A duplicate minimum split across two column bands must still be seen
     as a tie (first != last) after the ring reduction."""
     b = rng.random((1, 40, 30)) < 0.5
     b1 = b.copy()
-    b1[:, 35] = b1[:, 2]  # duplicate far apart -> lives on different bands
+    b1[:, dup] = b1[:, 2]  # duplicate far apart -> lives on another band
     bits0 = b[:, 2:3, :]  # single query equal to the duplicated descriptor
-    cw, fw, lw = row_minima_wband(bits0, b1, True, mesh=mesh,
-                                  backend=backend)
+    cw, fw, lw = row_minima_wband(bits0, b1, True, mesh=mesh)
     assert int(cw[0, 0]) == 0
     assert int(fw[0, 0]) == 2
-    assert int(lw[0, 0]) == 35
+    assert int(lw[0, 0]) == dup
 
 
-def test_match_sharded_w_pallas_ring(rng, mesh):
-    """Full W-banded pipeline with the Pallas band-kernel ring engine."""
+def test_match_sharded_w_kernel_agree(rng, mesh):
+    """Full W-banded pipeline with the NXCORR kernel (interpret mode)
+    validating each column band."""
     from conftest import make_stack_pair
 
     s0, s1, _ = make_stack_pair(rng, 5, 6, 41)
@@ -114,7 +122,7 @@ def test_match_sharded_w_pallas_ring(rng, mesh):
                        variant=Consistency(max_lr_diff=1, no_dupes=True))):
         ref = np.asarray(bicos.match(s0, s1, cfg, backend="xla"))
         got = np.asarray(match_sharded_w(
-            s0, s1, cfg, mesh=mesh, backend="pallas_interpret"))
+            s0, s1, cfg, mesh=mesh, backend="triton_interpret"))
         np.testing.assert_array_equal(got, ref)
 
 
@@ -125,7 +133,7 @@ def test_match_sharded_w_pallas_ring(rng, mesh):
     # step 0.1: the x grid is NOT exactly representable in f32, so the
     # banded agree must apply its column offset inside the exact integer
     # disparity (agree_subpixel col_offset) — adding it to the float
-    # output rounds twice and lands 1 ulp off single-chip (regression:
+    # output rounds twice and lands 1 ulp off single-device (regression:
     # found by tools/fuzz_soak.py; steps 0.5/0.25 are exact grids and
     # cannot catch it).
     Config(nxcorr_threshold=0.6, subpixel_step=0.1),
@@ -136,8 +144,8 @@ def test_match_sharded_w_pallas_ring(rng, mesh):
 ])
 def test_match_sharded_w_equals_single(rng, mesh, cfg):
     """W-banded match (ring search + gathered-agree) must equal the
-    single-chip pipeline exactly."""
-    from libbicos_tpu.sharding import match_sharded_w
+    single-device pipeline exactly."""
+    from libbicos_jax.sharding import match_sharded_w
     from conftest import make_stack_pair
 
     s0, s1, _ = make_stack_pair(rng, 5, 4, 42)  # W=42: uneven over 4 devices
@@ -154,9 +162,9 @@ def test_match_sharded_w_equals_single(rng, mesh, cfg):
 
 
 def test_wband_ring_visits_prunes_exactly():
-    """wband_ring_visits must keep exactly the visits where SOME (chip,
+    """wband_ring_visits must keep exactly the visits where SOME (device,
     col0, col1) pair is in range — brute-forced over real column indices."""
-    from libbicos_tpu.sharding import wband_ring_visits
+    from libbicos_jax.sharding import wband_ring_visits
 
     for ndev in (2, 3, 4):
         for band in (4, 7):
@@ -183,19 +191,18 @@ def test_wband_ring_visits_prunes_exactly():
     assert wband_ring_visits(4, 8, None) == [0, 1, 2, 3]
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["xla", "triton_interpret"])
 @pytest.mark.parametrize("drange", [(0, 15), (3, 20), (-6, 6)])
 def test_wband_ring_ranged_equals_masked_scan(rng, mesh, backend, drange):
-    """Ranged W-band ring minima == the single-chip masked ranged scan,
-    including the -1/-2 no-candidate sentinels."""
+    """Ranged W-band ring minima == the single-device ranged scan of either
+    engine, including the -1/-2 no-candidate sentinels."""
     from conftest import make_stack_pair
 
     s0, s1, _ = make_stack_pair(rng, 6, 3, 42)
     b0 = descriptor.descriptor_bits(s0, TransformMode.LIMITED)
     b1 = descriptor.descriptor_bits(s1, TransformMode.LIMITED)
-    cw, fw, lw = row_minima_wband(b0, b1, True, mesh=mesh, backend=backend,
-                                  drange=drange)
-    c1, f1, l1 = search.row_minima_xla(b0, b1, True, drange=drange)
+    cw, fw, lw = row_minima_wband(b0, b1, True, mesh=mesh, drange=drange)
+    c1, f1, l1 = _single_minima(backend, b0, b1, True, drange)
     fw, lw = np.asarray(fw), np.asarray(lw)
     np.testing.assert_array_equal(fw, np.asarray(f1))
     np.testing.assert_array_equal(lw, np.asarray(l1))
@@ -208,7 +215,7 @@ def test_wband_ring_ranged_equals_masked_scan(rng, mesh, backend, drange):
         assert (~m).any(), "range should create no-candidate pixels"
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["xla", "triton_interpret"])
 @pytest.mark.parametrize("cfg", [
     Config(nxcorr_threshold=0.5, min_variance=1.0,
            disparity_range=(0, 15)),
@@ -222,9 +229,9 @@ def test_wband_ring_ranged_equals_masked_scan(rng, mesh, backend, drange):
            disparity_range=(-6, 9)),
 ])
 def test_match_sharded_w_ranged_equals_single(rng, mesh, backend, cfg):
-    """disparity_range composes with W-banding (r5): the ranged ring (with
-    static visit pruning) must equal the single-chip ranged pipeline
-    exactly, for both ring engines."""
+    """disparity_range composes with W-banding: the ranged ring (with
+    static visit pruning) must equal the single-device ranged pipeline
+    exactly, with either agree engine."""
     from conftest import make_stack_pair
 
     s0, s1, _ = make_stack_pair(rng, 5, 4, 42)
@@ -240,14 +247,14 @@ def test_match_sharded_w_ranged_equals_single(rng, mesh, backend, cfg):
 
 
 def test_match_sharded_w_ranged_u16(rng, mesh):
-    """u16 input through the ranged fused band-kernel ring."""
+    """u16 input through the ranged ring and the NXCORR kernel."""
     from conftest import make_stack_pair
 
     cfg = Config(nxcorr_threshold=0.5, disparity_range=(0, 15))
     s0, s1, _ = make_stack_pair(rng, 5, 3, 42, dtype=np.uint16)
     want = np.asarray(bicos.match(s0, s1, cfg, backend="xla"))
     got = np.asarray(match_sharded_w(s0, s1, cfg, mesh=mesh,
-                                     backend="pallas_interpret"))
+                                     backend="triton_interpret"))
     np.testing.assert_array_equal(got, want)
 
 
@@ -255,7 +262,7 @@ def test_sharded_surfaces_validate_like_match(rng, mesh):
     """The sharded entry points must reject bad inputs with the same errors
     match() raises (reference guards cpu.cpp:110-114), not crash inside
     shard_map."""
-    from libbicos_tpu.sharding import match_sharded_w
+    from libbicos_jax.sharding import match_sharded_w
     from conftest import make_stack_pair
 
     s0, s1, _ = make_stack_pair(rng, 5, 8, 24)
@@ -271,34 +278,21 @@ def test_sharded_surfaces_validate_like_match(rng, mesh):
                corrmap=True)
 
 
-def test_wband_pallas_ultrawide_16k_packing(rng, mesh):
-    """For W in [8192, 16384) the Pallas band ring switches to the 16384
-    packing; global-column minima must still decode exactly."""
-    h, w, b = 1, 8300, 32  # 32 bits: spurious zero-cost collisions ~2^-32
-    bits1 = rng.random((h, w, b)) < 0.5
-    bits0 = bits1[:, 8260:8261, :].copy()  # planted zero-cost match @ 8260
-    cw, fw, lw = row_minima_wband(bits0, bits1, True, mesh=mesh,
-                                  backend="pallas_interpret")
+@pytest.mark.parametrize("w, col", [(8300, 8260), (16500, 16450)])
+def test_wband_ring_wide_rows(rng, mesh, w, col):
+    """Rows far wider than a band still decode global columns exactly
+    (planted zero-cost match; 32 bits make spurious ties ~2^-32)."""
+    bits1 = rng.random((1, w, 32)) < 0.5
+    bits0 = bits1[:, col:col + 1, :].copy()
+    cw, fw, lw = row_minima_wband(bits0, bits1, True, mesh=mesh)
     assert int(cw[0, 0]) == 0
-    assert int(fw[0, 0]) == 8260
-
-
-def test_wband_pallas_falls_back_beyond_16k(rng, mesh):
-    """Beyond 16384 columns even the wide packing would alias; the ring
-    must fall back to the einsum engine (PACK_K = 32768)."""
-    h, w, b = 1, 16500, 32
-    bits1 = rng.random((h, w, b)) < 0.5
-    bits0 = bits1[:, 16450:16451, :].copy()  # planted match @ 16450
-    cw, fw, lw = row_minima_wband(bits0, bits1, True, mesh=mesh,
-                                  backend="pallas_interpret")
-    assert int(cw[0, 0]) == 0
-    assert int(fw[0, 0]) == 16450
+    assert int(fw[0, 0]) == col
 
 
 def test_match_batched_sharded_rejects_shape_mismatch(rng, mesh):
     """(2,n,6,W) vs (4,n,3,W) have the same batch*H product; folding must
     reject the mismatch instead of silently pairing rows across images."""
-    from libbicos_tpu.sharding import match_batched_sharded
+    from libbicos_jax.sharding import match_batched_sharded
 
     a = rng.integers(0, 256, (2, 4, 6, 24)).astype(np.uint8)
     c = rng.integers(0, 256, (4, 4, 3, 24)).astype(np.uint8)
@@ -311,8 +305,8 @@ def test_match_batched_sharded_rejects_shape_mismatch(rng, mesh):
 def test_sharded_w_rejects_ultrawide(mesh):
     """match_sharded_w packs cost * PACK_K + col; wider images would alias
     into the cost field, so the guard must fire before any compute."""
-    from libbicos_tpu.sharding import match_sharded_w
-    from libbicos_tpu.search import PACK_K
+    from libbicos_jax.sharding import match_sharded_w
+    from libbicos_jax.search import PACK_K
 
     s = np.zeros((2, 1, PACK_K + 8), np.uint8)
     with pytest.raises(ValueError, match="width"):
@@ -320,10 +314,10 @@ def test_sharded_w_rejects_ultrawide(mesh):
 
 
 def test_match_sharded_double_precision(rng, mesh):
-    """Precision.DOUBLE on the sharded surface must match the single-chip
+    """Precision.DOUBLE on the sharded surface must match the single-device
     DOUBLE result — the x64 scope has to wrap the shard_map tracing too,
     or NXCORR silently degrades to f32."""
-    from libbicos_tpu import Precision
+    from libbicos_jax import Precision
     from conftest import make_stack_pair
 
     s0, s1, _ = make_stack_pair(rng, 5, 8, 24)
@@ -338,10 +332,10 @@ def test_match_sharded_double_precision(rng, mesh):
 def test_match_sharded_reuses_jit_cache(rng):
     """The sharded entry points must NOT rebuild jax.jit per call — a fresh
     wrapper keys the trace cache on a new function identity and recompiles
-    the whole pipeline every invocation (minutes on TPU), defeating
+    the whole pipeline every invocation, defeating
     serve.Engine's warm-pipeline contract."""
     from conftest import make_stack_pair
-    from libbicos_tpu.sharding import _hband_run, make_mesh, match_sharded
+    from libbicos_jax.sharding import _hband_run, make_mesh, match_sharded
 
     mesh = make_mesh(2)
     cfg = Config(nxcorr_threshold=0.5)
